@@ -5,13 +5,16 @@ Covers:
   * BFS / SSSP / CC wall-clock to convergence on an RMAT graph
     (reference rows: bfs/sssp/cc in graphtap.slurm:50-72)
   * PageRank iterations/sec at a larger scale (north-star: RMAT-24)
-  * simulated-mesh scaling table (1 -> N CPU devices, nnz/s) — the
-    single-host stand-in for the >=70% multi-host scaling-efficiency
-    target until real multi-chip hardware is available
 
-Writes one JSON object per line to BENCH_SUITE.json (and stdout).
+Everything runs in this one process on one GPU (a second JAX process
+would find the card's memory already reserved); it refuses to run
+without a GPU. The mesh path across several cards is checked by
+``chip_smoke.py --chips 4``.
+
+Writes one JSON object per line to BENCH_SUITE.json (and stdout); every
+line carries the device record (graphtap/tools/device_info.py).
 Env knobs: SUITE_SCALE (default 18), SUITE_PR_SCALE (default 22),
-SUITE_KERNEL (default scan — no plan-build cost), SUITE_SKIP_SCALING.
+SUITE_PR_ITERS (default 5).
 """
 
 import json
@@ -23,8 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SCALE = int(os.environ.get("SUITE_SCALE", "18"))
 PR_SCALE = int(os.environ.get("SUITE_PR_SCALE", "22"))
-KERNEL = os.environ.get("SUITE_KERNEL", "")   # default: panel on TPU
-# (the flagship kernel), portable scan elsewhere — resolved in main()
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      ".bench_cache")
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -36,7 +37,8 @@ def log(msg):
 
 
 def emit(fh, rec):
-    line = json.dumps(rec)
+    from graphtap.tools.device_info import device_record
+    line = json.dumps({**rec, "device": device_record()})
     print(line, flush=True)
     fh.write(line + "\n")
     fh.flush()
@@ -49,19 +51,20 @@ def done(metric):
     return metric in _DONE
 
 
-def _graph(scale, cfg_fn, weighted=False, mesh=None):
-    from graphtap_tpu import Graph
-    from graphtap_tpu.tools.artifact_cache import cached_rmat
+def _graph(scale, cfg_fn, weighted=False):
+    import jax
+    from graphtap import Graph, make_mesh
+    from graphtap.tools.artifact_cache import cached_rmat
     src, dst, w = cached_rmat(scale, 16, 1, CACHE, weighted=weighted)
+    mesh = make_mesh(jax.devices()[:1], shape=(1, 1))
     return Graph.from_edges(src, dst, w, cfg_fn(1 << scale), mesh=mesh)
 
 
-def _row_artifacts(g, scale, weighted, value_dtype):
-    """Disk-cached ROW tiles + v3 plans for the nonstationary apps, so a
-    re-run (or an A/B after a kernel change) skips the plan build."""
-    import numpy as np
-    from graphtap_tpu.config import Ordering
-    from graphtap_tpu.tools import artifact_cache as ac
+def _row_tiles(g, scale, weighted):
+    """Disk-cached ROW tiles for the nonstationary apps, so a re-run (or
+    an A/B after a kernel change) skips the tile build."""
+    from graphtap.config import Ordering
+    from graphtap.tools import artifact_cache as ac
     tag = "w" if weighted else ""
     key = f"rmat{scale}_ef16_s1{tag}_row_1x1"
     tp = os.path.join(CACHE, f"tiles_{key}.npz")
@@ -70,16 +73,7 @@ def _row_artifacts(g, scale, weighted, value_dtype):
     else:
         tiles = g.tiled(Ordering.ROW)
         ac.save_tileset(tiles, tp)
-    if KERNEL != "panel":
-        return tiles, None
-    pp = os.path.join(CACHE,
-                      f"plans3_{key}_{np.dtype(value_dtype).name}.npz")
-    plans = ac.load_spmv3_meta(pp) if os.path.exists(pp) else None
-    if plans is None:
-        from graphtap_tpu.kernels.panel_engine import build_spmv3_meta
-        plans = build_spmv3_meta(tiles, value_dtype=np.dtype(value_dtype))
-        ac.save_spmv3_meta(plans, pp)
-    return tiles, plans
+    return tiles
 
 
 def _golden_nonstationary(name):
@@ -91,7 +85,7 @@ def _golden_nonstationary(name):
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
     import golden
-    from graphtap_tpu.tools.artifact_cache import cached_rmat
+    from graphtap.tools.artifact_cache import cached_rmat
     gp = os.path.join(CACHE, f"golden_{name}_rmat{SCALE}_ef16_s1.txt")
     if os.path.exists(gp):
         cs, reach = open(gp).read().split()
@@ -119,12 +113,12 @@ def _golden_nonstationary(name):
 
 
 def nonstationary_apps(fh):
-    import jax.numpy as jnp
-    from graphtap_tpu.apps.bfs import BFSProgram, bfs_config
-    from graphtap_tpu.apps.cc import CCProgram, cc_config
-    from graphtap_tpu.apps.sssp import SSSPProgram, sssp_config
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
+    import jax
+    from graphtap.apps.bfs import BFSProgram, bfs_config
+    from graphtap.apps.cc import CCProgram, cc_config
+    from graphtap.apps.sssp import SSSPProgram, sssp_config
+    from graphtap.config import EngineConfig, Ordering
+    from graphtap.engine.executor import Executor
 
     runs = [
         ("bfs", bfs_config, False, BFSProgram(root=0),
@@ -140,11 +134,10 @@ def nonstationary_apps(fh):
             continue
         t0 = time.perf_counter()
         g = _graph(SCALE, cfg_fn, weighted=weighted)
-        tiles, plans = _row_artifacts(g, SCALE, weighted,
-                                      prog.value_dtype)
+        tiles = _row_tiles(g, SCALE, weighted)
         ex = Executor(g, prog,
                       EngineConfig(ordering=Ordering.ROW, **eflags),
-                      tiles=tiles, kernel=KERNEL, shuffle_plans=plans)
+                      tiles=tiles)
         ex.sync_uploads()
         upload_s = time.perf_counter() - t0
         log(f"[suite] {name}: " + ex.tiles.balance_report())
@@ -156,6 +149,7 @@ def nonstationary_apps(fh):
         ex.execute(0)
         warmup_s = time.perf_counter() - t_w
         ex.initialize()
+        jax.block_until_ready(ex.state)
         t1 = time.perf_counter()
         iters = ex.execute(0)          # to convergence
         dt = time.perf_counter() - t1
@@ -171,209 +165,40 @@ def nonstationary_apps(fh):
         log(f"[suite] {name}: checksum ok vs golden ({cs:.0f}/{reach})")
         nnz = ex.tiles.nnz_total
         emit(fh, {
-            "metric": f"{name}_seconds_rmat{SCALE}", "value": round(dt, 3),
+            "metric": f"{name}_seconds_rmat{SCALE}", "value": dt,
             "unit": "s", "detail": {
                 "iterations": iters, "edges": int(nnz),
-                "gteps": round(nnz * iters / dt / 1e9, 4),
-                "checksum": cs, "reachable": reach, "kernel": KERNEL,
-                "build_seconds": round(t_build, 1),
-                "upload_seconds": round(upload_s, 1),
-                "warmup_seconds": round(warmup_s, 1),
-                "imbalance": round(ex.tiles.edge_balance()["imbalance"], 3)}})
+                "gteps": nnz * iters / dt / 1e9,
+                "checksum": cs, "reachable": reach, "kernel": ex.kernel,
+                "build_seconds": t_build,
+                "upload_seconds": upload_s,
+                "warmup_seconds": warmup_s,
+                "imbalance": ex.tiles.edge_balance()["imbalance"]}})
 
 
 def pagerank_large(fh):
-    """Large-scale PR via the bench.py driver in a fresh subprocess
-    (shared artifact caches + the f64 golden checksum gate + the
-    degree-phase free()); the suite records the derived iters/s."""
+    """Large-scale PR through the bench.py driver, in this process (shared
+    artifact caches + the f64 golden checksum gate + the degree-phase
+    free()); the suite records the derived iters/s."""
     if done(f"pagerank_iters_per_sec_rmat{PR_SCALE}"):
         log("[suite] pagerank_large: already recorded, skipping")
         return
-    import subprocess
-    env = dict(os.environ)
-    env["BENCH_SCALE"] = str(PR_SCALE)
-    env["BENCH_ITERS"] = os.environ.get("SUITE_PR_ITERS", "5")
-    out = subprocess.run(
-        [sys.executable, os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "bench.py")],
-        capture_output=True, text=True, env=env, timeout=14000)
-    if out.returncode != 0:
-        log(f"[suite] pagerank_large failed: {out.stderr[-800:]}")
-        return
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    import bench
+    rec = bench.main(scale=PR_SCALE,
+                     iters=int(os.environ.get("SUITE_PR_ITERS", "5")))
     d = rec["detail"]
     emit(fh, {
         "metric": f"pagerank_iters_per_sec_rmat{PR_SCALE}",
-        "value": round(d["iters"] / d["seconds"], 4), "unit": "iters/s",
+        "value": d["iters"] / d["seconds"], "unit": "iters/s",
         "detail": {**d, "gteps": rec["value"],
                    "vs_cpu_baseline": rec["vs_baseline"]}})
 
 
-def comm_model_row(fh):
-    """Validate the multi-chip comm model on the virtual 8-device mesh
-    (replaces the oversubscribed cpu_mesh_scaling timing, which measured
-    2-core timesharing, not scaling):
-
-      (a) per-superstep collective bytes, read from the COMPILED
-          multi-device program's HLO, vs the layout.py formula
-          (R-1)*L words x-gather + (C-1)*L words y-reduce per device;
-      (b) wall-clock invariance across mesh SHAPES (1x8 / 2x4 / 8x1)
-          at fixed total work — same 8 virtual devices timesharing the
-          same host, so any spread beyond noise is layout-induced
-          overhead (the quantity the >=70% scaling north star needs
-          bounded), not oversubscription.
-    """
-    import subprocess
-    rows = []
-    for R, C in ((1, 8), (2, 4), (8, 1)):
-        code = f"""
-import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import time, json, re, sys
-import jax
-jax.config.update("jax_platforms", "cpu")
-import jax.numpy as jnp
-sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
-from graphtap_tpu import Graph, GraphConfig, Compression
-from graphtap_tpu.apps.degree import DegreeProgram
-from graphtap_tpu.apps.pagerank import PageRankProgram
-from graphtap_tpu.config import EngineConfig, Ordering
-from graphtap_tpu.engine.executor import Executor
-from graphtap_tpu.parallel.layout import make_mesh
-from graphtap_tpu.tools.artifact_cache import cached_rmat
-src, dst, _ = cached_rmat(17, 16, 1, {CACHE!r})
-mesh = make_mesh(jax.devices()[:8], shape=({R}, {C}))
-cfg = GraphConfig(num_vertices=1 << 17, directed=True, transpose=True,
-                  compression=Compression.TCSC)
-g = Graph.from_edges(src, dst, None, cfg, mesh=mesh)
-deg = Executor(g, DegreeProgram(value_dtype=jnp.float32),
-               EngineConfig(stationary=True, ordering=Ordering.COL),
-               kernel="scan")
-deg.initialize(); deg.execute(1)
-pr = Executor(g, PageRankProgram(value_dtype=jnp.float32),
-              EngineConfig(stationary=True, ordering=Ordering.ROW),
-              kernel="scan")
-pr.initialize(other=deg)
-# collective bytes from the compiled superstep program (one loop body)
-lowered = pr._run_fixed.lower(pr.state, pr.changed, pr._tile_pytree, 5)
-txt = lowered.compile().as_text()
-coll = dict(all_gather=0, reduce_scatter=0, all_reduce=0, all_to_all=0,
-            collective_permute=0)
-DT = dict(f32=4, s32=4, u32=4, f64=8, s64=8, u64=8, pred=1, s8=1, u8=1,
-          bf16=2, f16=2, s16=2, u16=2)
-for m_ in re.finditer(
-        r"= *([a-z0-9]+)\\[([0-9,]*)\\][^ ]* +(all-gather|"
-        r"reduce-scatter|all-reduce|all-to-all|collective-permute)", txt):
-    dt, shape, op = m_.group(1), m_.group(2), m_.group(3)
-    n = 1
-    for d_ in shape.split(","):
-        if d_:
-            n *= int(d_)
-    coll[op.replace("-", "_")] += n * DT.get(dt, 4)
-pr.execute(5)                      # compile+settle
-pr.initialize(other=deg)
-t0 = time.perf_counter(); pr.execute(5)
-dt = time.perf_counter() - t0
-L = pr.part.L
-formula = (({R} - 1) * L + ({C} - 1) * L) * 4
-print(json.dumps(dict(R={R}, C={C}, seconds=dt, L=L,
-                      formula_bytes_per_dev_iter=formula,
-                      hlo_collective_bytes=coll)))
-"""
-        out = subprocess.run([sys.executable, "-c", code],
-                             capture_output=True, text=True, timeout=1500)
-        if out.returncode != 0:
-            log(f"[suite] comm_model {R}x{C} failed: {out.stderr[-600:]}")
-            continue
-        rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        log(f"[suite] comm_model {rows[-1]}")
-    if rows:
-        secs = [r["seconds"] for r in rows]
-        spread = (max(secs) - min(secs)) / max(secs)
-        emit(fh, {"metric": "comm_model_8dev_rmat17",
-                  "value": round(spread, 3),
-                  "unit": "mesh-shape time spread (0 = invariant)",
-                  "detail": {"rows": rows,
-                             "note": "HLO collective bytes are per "
-                             "fori_loop-body execution (one superstep); "
-                             "the x all-gather rides the rows axis and "
-                             "the partial-y reduce-scatter the cols "
-                             "axis, so 1x8 gathers nothing and 8x1 "
-                             "scatters nothing — the formula column "
-                             "gives the layout.py prediction"}})
-
-
-def scaling_table(fh):
-    """nnz/s at 1..8 simulated CPU devices (subprocess per point so the
-    device count can differ)."""
-    import subprocess
-    rows = []
-    for nd in (1, 2, 4, 8):
-        code = f"""
-import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={nd}"
-import time, json
-import jax
-jax.config.update("jax_platforms", "cpu")
-import jax.numpy as jnp
-import sys
-sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
-from graphtap_tpu import Graph, GraphConfig, Compression
-from graphtap_tpu.apps.degree import DegreeProgram
-from graphtap_tpu.apps.pagerank import PageRankProgram
-from graphtap_tpu.config import EngineConfig, Ordering
-from graphtap_tpu.engine.executor import Executor
-from graphtap_tpu.parallel.layout import make_mesh, integer_factorize
-from graphtap_tpu.tools.artifact_cache import cached_rmat
-src, dst, _ = cached_rmat(16, 16, 1, {CACHE!r})
-mesh = make_mesh(jax.devices()[:{nd}], shape=integer_factorize({nd}))
-cfg = GraphConfig(num_vertices=1 << 16, directed=True, transpose=True,
-                  compression=Compression.TCSC)
-g = Graph.from_edges(src, dst, None, cfg, mesh=mesh)
-deg = Executor(g, DegreeProgram(value_dtype=jnp.float32),
-               EngineConfig(stationary=True, ordering=Ordering.COL),
-               kernel="scan")
-deg.initialize(); deg.execute(1)
-pr = Executor(g, PageRankProgram(value_dtype=jnp.float32),
-              EngineConfig(stationary=True, ordering=Ordering.ROW),
-              kernel="scan")
-pr.initialize(other=deg); pr.execute(5)
-pr.initialize(other=deg)
-t0 = time.perf_counter(); pr.execute(5)
-dt = time.perf_counter() - t0
-print(json.dumps(dict(nd={nd}, seconds=dt,
-                      nnz_per_s=pr.tiles.nnz_total * 5 / dt)))
-"""
-        out = subprocess.run([sys.executable, "-c", code],
-                             capture_output=True, text=True, timeout=900)
-        if out.returncode != 0:
-            log(f"[suite] scaling nd={nd} failed: {out.stderr[-500:]}")
-            continue
-        rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        log(f"[suite] scaling {rows[-1]}")
-    if rows:
-        base = rows[0]["nnz_per_s"]
-        eff = {str(r["nd"]):
-               round(r["nnz_per_s"] / (base * r["nd"]), 3) for r in rows}
-        emit(fh, {"metric": "cpu_mesh_scaling_rmat16",
-                  "value": eff.get("8", eff[max(eff)]),
-                  "unit": "efficiency",
-                  "detail": {"rows": rows, "efficiency_vs_1dev": eff,
-                             "note": "N virtual devices timeshare this "
-                             "host's 2 physical cores, so efficiency here "
-                             "is dominated by oversubscription; it bounds "
-                             "overhead growth, not ICI scaling"}})
-
-
 def main():
-    global KERNEL
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    if not KERNEL:
-        KERNEL = "panel" if jax.devices()[0].platform == "tpu" else "scan"
+    from graphtap.tools.compile_cache import setup_compile_cache
+    from graphtap.tools.device_info import require_gpu
+    setup_compile_cache()
+    require_gpu()
     os.makedirs(CACHE, exist_ok=True)
     # resumable: metrics already in BENCH_SUITE.json are kept and skipped
     if os.path.exists(OUT):
@@ -381,9 +206,6 @@ def main():
             if ln.strip():
                 _DONE.add(json.loads(ln)["metric"])
     with open(OUT, "a") as fh:
-        if not os.environ.get("SUITE_SKIP_SCALING") and \
-                not done("comm_model_8dev_rmat17"):
-            comm_model_row(fh)
         nonstationary_apps(fh)
         pagerank_large(fh)
 

@@ -3,7 +3,7 @@
 These reproduce the reference's *semantics* (validated against the built
 reference binary: CSC/DCSC/TCSC kernels on rmat10_1024 × 20 iters give
 checksum 317.0177, V[0]=0.165455, V[1]=0.426287 — see BASELINE.md) without
-sharing any code with either the reference or graphtap_tpu.
+sharing any code with either the reference or graphtap.
 """
 
 from __future__ import annotations

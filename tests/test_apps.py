@@ -1,9 +1,10 @@
-"""End-to-end app tests on the reference's golden rmat10 fixtures,
-validated against independent NumPy golden models and the reference's
-own printed oracles (BASELINE.md).
+"""End-to-end app tests on the generated RMAT-10 fixture (conftest.py),
+validated against independent NumPy golden models, through both SpMV
+kernels; plus the reference's own printed oracle (BASELINE.md) on its
+rmat10 file where that file is present.
 
-The mesh is the full 8-CPU-device simulation (2×4), so every run
-exercises the real all_gather / reduce-scatter collectives.
+The meshes are 1×1 and the 2×4 CPU-device simulation, so every app also
+runs the real all_gather / reduce-scatter collectives.
 """
 
 import numpy as np
@@ -11,19 +12,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from graphtap_tpu import Graph, GraphConfig, Compression, make_mesh
-from graphtap_tpu.apps import (run_pagerank, run_cc, run_bfs, run_sssp,
-                               run_degree)
-from graphtap_tpu.apps.cc import cc_config
-from graphtap_tpu.apps.bfs import bfs_config
-from graphtap_tpu.apps.sssp import sssp_config
-from graphtap_tpu.kernels.semiring import INF_I32
+from graphtap import Graph, GraphConfig, Compression, make_mesh
+from graphtap.apps import (run_pagerank, run_cc, run_bfs, run_sssp,
+                           run_degree)
+from graphtap.apps.cc import cc_config
+from graphtap.apps.bfs import bfs_config
+from graphtap.apps.sssp import sssp_config
+from graphtap.engine.executor import KERNELS
 
 import golden
 
 NV = 1025  # 1024 vertices + the id-0 slot (reference: graph.hpp:84-85)
-RMAT10 = "/root/reference/data/rmat10_1024.bin"
-RMAT10_W = "/root/reference/data/rmat10_1024_w.bin"
 
 # Captured from the reference single-node lab (g++-built, see BASELINE.md):
 #   ./main 0 rmat10_1024.bin 1024 20 -> Final value 317.018, V[0]=0.165455 ...
@@ -38,18 +37,30 @@ def mesh(request):
     return make_mesh(jax.devices()[: r * c], shape=(r, c))
 
 
-def test_pagerank_matches_reference(mesh, rmat10_edges):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_pagerank_matches_reference(mesh, rmat10_edges, kernel):
     src, dst = rmat10_edges
     cfg = GraphConfig(num_vertices=1024, directed=True, transpose=True,
                       compression=Compression.TCSC)
     g = Graph.from_edges(src, dst, None, cfg, mesh=mesh)
-    ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64)
+    ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64,
+                      kernel=kernel)
     total, reachable = ex.checksum()
     gold = golden.pagerank(src, dst, NV, 20)
-    assert total == pytest.approx(REF_PR_CHECKSUM, rel=1e-9)
     assert total == pytest.approx(gold.sum(), rel=1e-12)
     ranks = ex.state_vector()["rank"]
     np.testing.assert_allclose(ranks, gold, rtol=1e-10, atol=1e-12)
+
+
+def test_pagerank_reference_checksum(mesh, reference_rmat10):
+    """The reference binary's printed PageRank checksum on its own
+    rmat10_1024.bin (skips where that file is absent)."""
+    cfg = GraphConfig(num_vertices=1024, directed=True, transpose=True,
+                      compression=Compression.TCSC)
+    g = Graph.load(reference_rmat10, cfg, mesh=mesh)
+    ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64)
+    total, _ = ex.checksum()
+    assert total == pytest.approx(REF_PR_CHECKSUM, rel=1e-9)
 
 
 def test_degree(mesh, rmat10_edges):
@@ -63,10 +74,11 @@ def test_degree(mesh, rmat10_edges):
     np.testing.assert_array_equal(deg.astype(np.int64), gold)
 
 
-def test_bfs(mesh, rmat10_edges):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_bfs(mesh, rmat10_edges, kernel):
     src, dst = rmat10_edges
     g = Graph.from_edges(src, dst, None, bfs_config(1024), mesh=mesh)
-    ex = run_bfs(g, root=0)
+    ex = run_bfs(g, root=0, kernel=kernel)
     sv = ex.state_vector()
     parent_g, hops_g = golden.bfs(src, dst, NV, root=0)
     np.testing.assert_array_equal(sv["hops"].astype(np.int64), hops_g)
@@ -75,19 +87,21 @@ def test_bfs(mesh, rmat10_edges):
                                   parent_g[reached])
 
 
-def test_cc(mesh, rmat10_edges):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_cc(mesh, rmat10_edges, kernel):
     src, dst = rmat10_edges
     g = Graph.from_edges(src, dst, None, cc_config(1024), mesh=mesh)
-    ex = run_cc(g)
+    ex = run_cc(g, kernel=kernel)
     labels = ex.state_vector()["label"]
     gold = golden.cc(src, dst, NV)
     np.testing.assert_array_equal(labels.astype(np.int64), gold)
 
 
-def test_sssp(mesh, rmat10_w_edges):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_sssp(mesh, rmat10_w_edges, kernel):
     src, dst, w = rmat10_w_edges
     g = Graph.from_edges(src, dst, w, sssp_config(1024), mesh=mesh)
-    ex = run_sssp(g, root=0)
+    ex = run_sssp(g, root=0, kernel=kernel)
     dist = ex.state_vector()["distance"]
     gold = golden.sssp(src, dst, w, NV, root=0)
     np.testing.assert_array_equal(dist.astype(np.int64), gold)
@@ -109,9 +123,9 @@ def test_bfs_sparse_exchange(mesh, rmat10_edges, capacity):
     """Activity-filtered exchange (reference: scatter/gather_nonstationary,
     vertex_program.hpp:865-966): sparse/dense vote per iteration must not
     change any result. Small capacities force mid-run dense fallbacks."""
-    from graphtap_tpu.apps.bfs import BFSProgram
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
+    from graphtap.apps.bfs import BFSProgram
+    from graphtap.config import EngineConfig, Ordering
+    from graphtap.engine.executor import Executor
 
     src, dst = rmat10_edges
     g = Graph.from_edges(src, dst, None, bfs_config(1024), mesh=mesh)
@@ -127,9 +141,9 @@ def test_bfs_sparse_exchange(mesh, rmat10_edges, capacity):
 
 
 def test_sssp_sparse_exchange(mesh, rmat10_w_edges):
-    from graphtap_tpu.apps.sssp import SSSPProgram
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
+    from graphtap.apps.sssp import SSSPProgram
+    from graphtap.config import EngineConfig, Ordering
+    from graphtap.engine.executor import Executor
 
     src, dst, w = rmat10_w_edges
     g = Graph.from_edges(src, dst, w, sssp_config(1024), mesh=mesh)
@@ -142,41 +156,3 @@ def test_sssp_sparse_exchange(mesh, rmat10_w_edges):
     dist = ex.state_vector()["distance"]
     gold = golden.sssp(src, dst, w, NV, root=0)
     np.testing.assert_array_equal(dist.astype(np.int64), gold)
-
-
-def test_panel_kernel_2x4_mesh_scale14():
-    """Multi-device panel-pipeline coverage at a nontrivial scale: the v3
-    plans are per-device (padded to the mesh max) and the kernels run
-    under shard_map on a 2x4 CPU mesh — the tile sweep the panel kernel
-    distributes (reference: combine_2d_stationary,
-    vertex_program.hpp:1058-1113). Checks against the f64 golden model."""
-    import jax
-    import jax.numpy as jnp
-    from graphtap_tpu.ingest.rmat import rmat_edges
-    from graphtap_tpu.apps.degree import DegreeProgram
-    from graphtap_tpu.apps.pagerank import PageRankProgram
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
-    import golden
-
-    scale, iters = 14, 5
-    src, dst, _ = rmat_edges(scale=scale, edge_factor=16, seed=1)
-    n = 1 << scale
-    mesh = make_mesh(jax.devices()[:8], shape=(2, 4))
-    cfg = GraphConfig(num_vertices=n, directed=True, transpose=True,
-                      compression=Compression.TCSC)
-    g = Graph.from_edges(src, dst, None, cfg, mesh=mesh)
-    deg = Executor(g, DegreeProgram(value_dtype=jnp.float32),
-                   EngineConfig(stationary=True, ordering=Ordering.COL),
-                   kernel="panel")
-    deg.initialize()
-    deg.execute(1)
-    pr = Executor(g, PageRankProgram(value_dtype=jnp.float32),
-                  EngineConfig(stationary=True, ordering=Ordering.ROW),
-                  kernel="panel")
-    pr.initialize(other=deg)
-    pr.execute(iters)
-    cs, reach = pr.checksum()
-    v = golden.pagerank(src.astype(np.int64), dst.astype(np.int64),
-                        n + 1, iters)
-    assert abs(cs - float(v.sum())) / abs(float(v.sum())) < 1e-4

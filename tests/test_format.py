@@ -6,9 +6,9 @@ compressed_column.hpp:407-416)."""
 import numpy as np
 import pytest
 
-from graphtap_tpu.config import Compression
-from graphtap_tpu.format.tiles import build_tileset
-from graphtap_tpu.parallel.layout import Partition, integer_factorize
+from graphtap.config import Compression
+from graphtap.format.tiles import build_tileset
+from graphtap.parallel.layout import Partition, integer_factorize
 
 
 def test_integer_factorize():

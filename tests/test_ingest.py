@@ -6,32 +6,29 @@ import os
 import numpy as np
 import pytest
 
-from graphtap_tpu.ingest.io import (read_edge_list, apply_transforms,
-                                    write_binary)
-from graphtap_tpu.ingest.rmat import rmat_edges
-
-RMAT10 = "/root/reference/data/rmat10_1024.bin"
-RMAT10_W = "/root/reference/data/rmat10_1024_w.bin"
+from graphtap.ingest.io import (read_edge_list, apply_transforms,
+                                write_binary)
+from graphtap.ingest.rmat import rmat_edges
 
 
-def test_read_reference_binary():
-    r, c, w = read_edge_list(RMAT10)
+def test_read_reference_binary(rmat10_path):
+    r, c, w = read_edge_list(rmat10_path)
     assert r.size == 16384 and w is None
     assert r.max() <= 1023 and c.max() <= 1023
 
 
-def test_read_reference_binary_weighted():
-    r, c, w = read_edge_list(RMAT10_W, has_weight=True)
+def test_read_reference_binary_weighted(rmat10_w_path):
+    r, c, w = read_edge_list(rmat10_w_path, has_weight=True)
     assert r.size == 16384 and w is not None
-    assert w.min() >= 1
+    assert w.min() >= 1 and w.max() <= 128
 
 
-def test_parallel_read_shards_cover_file():
-    parts = [read_edge_list(RMAT10, process_index=i, process_count=4)
+def test_parallel_read_shards_cover_file(rmat10_path):
+    parts = [read_edge_list(rmat10_path, process_index=i, process_count=4)
              for i in range(4)]
     r = np.concatenate([p[0] for p in parts])
     c = np.concatenate([p[1] for p in parts])
-    r0, c0, _ = read_edge_list(RMAT10)
+    r0, c0, _ = read_edge_list(rmat10_path)
     np.testing.assert_array_equal(r, r0)
     np.testing.assert_array_equal(c, c0)
 
@@ -105,7 +102,7 @@ def test_text_native_vs_numpy_large(tmp_path):
     """A multi-MB text file parses identically through the native
     gt_parse_text path and the NumPy fallback (reference: parread_text,
     graph.hpp:234-306)."""
-    from graphtap_tpu import native
+    from graphtap import native
     path = tmp_path / "big.el"
     rng = np.random.default_rng(11)
     n = 300_000                               # ~3.5 MB of text
@@ -117,7 +114,7 @@ def test_text_native_vs_numpy_large(tmp_path):
     np.testing.assert_array_equal(cc, c)
     if native.available():
         # force the NumPy fallback and compare
-        import graphtap_tpu.native as nat
+        import graphtap.native as nat
         saved = nat._lib
         try:
             nat._lib = None

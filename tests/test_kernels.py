@@ -9,11 +9,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from graphtap_tpu.kernels.semiring import (plus_times, min_plus, min_select,
-                                           INF_I32)
-from graphtap_tpu.kernels.spmv import (spmv_segment, spmv_dense_reference,
-                                       spmv_sorted_scan, scatter_to_dense,
-                                       expand_compact)
+from graphtap.kernels.semiring import (plus_times, min_plus, min_select,
+                                       INF_I32)
+from graphtap.kernels.spmv import (spmv_segment, spmv_dense_reference,
+                                   spmv_sorted_scan, scatter_to_dense,
+                                   expand_compact)
 
 
 def _random_tile(rng, n_rows, n_cols, nnz, Ep, weighted, dtype):

@@ -17,21 +17,19 @@ import pytest
 
 import jax
 
-from graphtap_tpu import Graph, GraphConfig, Compression, make_mesh
-from graphtap_tpu.config import Ordering
-from graphtap_tpu.format import tiles as tiles_mod
-from graphtap_tpu.format.tiles import build_tileset
-from graphtap_tpu.parallel import multihost as mh
-from graphtap_tpu.parallel.layout import Partition
-from graphtap_tpu.ingest.io import read_edge_list
-
-RMAT10 = "/root/reference/data/rmat10_1024.bin"
-RMAT10_W = "/root/reference/data/rmat10_1024_w.bin"
+from graphtap import Graph, GraphConfig, Compression, make_mesh
+from graphtap.config import Ordering
+from graphtap.format import tiles as tiles_mod
+from graphtap.format.tiles import build_tileset
+from graphtap.parallel import multihost as mh
+from graphtap.parallel.layout import Partition
+from graphtap.ingest.io import read_edge_list
 
 
-@pytest.mark.parametrize("path,weighted", [(RMAT10, False), (RMAT10_W, True)])
+@pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("pcnt", [2, 3, 5])
-def test_byte_range_reads_partition_the_file(path, weighted, pcnt):
+def test_byte_range_reads_partition_the_file(rmat10_files, weighted, pcnt):
+    path = rmat10_files["weighted" if weighted else "plain"]
     full_r, full_c, full_w = read_edge_list(path, has_weight=weighted)
     parts = [read_edge_list(path, has_weight=weighted,
                             process_index=p, process_count=pcnt)
@@ -64,13 +62,13 @@ def test_host_edge_share_partitions_edges():
 
 
 @pytest.mark.parametrize("comp", [Compression.TCSC, Compression.CSC])
-def test_distributed_tileset_matches_global(comp, monkeypatch):
+def test_distributed_tileset_matches_global(comp, monkeypatch, rmat10_path):
     """Each simulated process builds tiles from only its devices' edges;
     with the mask/count reductions faked to return the true globals, its
     local devices' rows must equal the single-host build's."""
     mesh = make_mesh(jax.devices()[:8], shape=(2, 4))
     part = Partition.build(1025, 2, 4, segment_align=128)
-    raw = np.fromfile(RMAT10, dtype=np.uint32).reshape(-1, 2)
+    raw = np.fromfile(rmat10_path, dtype=np.uint32).reshape(-1, 2)
     r, c = raw[:, 0].astype(np.int64), raw[:, 1].astype(np.int64)
 
     ref = build_tileset(r, c, None, part, compression=comp, edge_align=256)

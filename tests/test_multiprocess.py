@@ -11,6 +11,8 @@ import sys
 
 import pytest
 
+import golden
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "two_process_worker.py")
 
@@ -24,14 +26,14 @@ def _free_port():
 
 
 @pytest.mark.timeout(600)
-def test_two_process_pagerank():
+def test_two_process_pagerank(rmat10_path, rmat10_edges):
     port = _free_port()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)          # workers set their own
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(i), "2", str(port)],
+        [sys.executable, WORKER, str(i), "2", str(port), rmat10_path],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
         for i in range(2)]
     outs = []
@@ -48,11 +50,13 @@ def test_two_process_pagerank():
     out0 = outs[0][1]
     lines = {ln.split()[0]: ln.split()[1:] for ln in out0.splitlines()
              if ln and ln.split()[0] in ("EDGES", "CHECKSUM",
-                                         "CHECKSUM_CF", "CHECKSUM_PANEL")}
+                                         "CHECKSUM_CF", "CHECKSUM_SEGMENT")}
     assert int(lines["EDGES"][0]) == 16384          # conservation
-    # the reference oracle (singlenode TCSC, 20 iters): 317.0177 / 1025
-    for key in ("CHECKSUM", "CHECKSUM_CF", "CHECKSUM_PANEL"):
+    # the f64 golden model (20 iters); every vertex holds a finite rank
+    src, dst = rmat10_edges
+    gold = golden.pagerank(src, dst, 1025, 20).sum()
+    for key in ("CHECKSUM", "CHECKSUM_CF", "CHECKSUM_SEGMENT"):
         cs = float(lines[key][0])
         reach = int(lines[key][1])
-        assert abs(cs - 317.017690) < 2e-3, (key, cs)
+        assert abs(cs - gold) < 2e-3, (key, cs, gold)
         assert reach == 1025, key

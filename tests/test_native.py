@@ -4,7 +4,7 @@ equivalence)."""
 import numpy as np
 import pytest
 
-from graphtap_tpu import native
+from graphtap import native
 
 
 def test_native_builds():
@@ -38,7 +38,7 @@ def test_dedup_edges():
 
 
 def test_bin_edges_matches_layout():
-    from graphtap_tpu.parallel.layout import Partition
+    from graphtap.parallel.layout import Partition
     part = Partition.build(nv=3000, R=2, C=4, segment_align=128)
     rng = np.random.default_rng(1)
     r = rng.integers(0, part.nv, 5000).astype(np.int64)

@@ -1,6 +1,7 @@
 """TCSC_CF (computation filtering) tests: the pr.cpp pipeline with
-_TCSC_CF_ must produce the same values as plain TCSC (reference: the
-formats are outputs-equivalent; singlenode harness cross-checks)."""
+_TCSC_CF_ must produce the same values as plain TCSC and the golden model
+(reference: the formats are outputs-equivalent; singlenode harness
+cross-checks)."""
 
 import numpy as np
 import pytest
@@ -8,9 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from graphtap_tpu import Graph, GraphConfig, Compression, make_mesh
-from graphtap_tpu.apps.pagerank import run_pagerank
-from graphtap_tpu.format.tiles import classify_vertices
+from graphtap import Graph, GraphConfig, Compression, make_mesh
+from graphtap.apps.pagerank import run_pagerank
+from graphtap.format.tiles import classify_vertices
 
 import golden
 
@@ -45,10 +46,21 @@ def test_pagerank_tcsc_cf_matches_reference(mesh, rmat10_edges):
     g = Graph.from_edges(src, dst, None, cfg, mesh=mesh)
     ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64)
     total, _ = ex.checksum()
-    assert total == pytest.approx(REF_PR_CHECKSUM, rel=1e-9)
     gold = golden.pagerank(src, dst, NV, 20)
+    assert total == pytest.approx(gold.sum(), rel=1e-12)
     np.testing.assert_allclose(ex.state_vector()["rank"], gold,
                                rtol=1e-10, atol=1e-12)
+
+
+def test_pagerank_tcsc_cf_reference_checksum(mesh, reference_rmat10):
+    """The reference binary's printed checksum on its own rmat10_1024.bin
+    (skips where that file is absent)."""
+    cfg = GraphConfig(num_vertices=1024, directed=True, transpose=True,
+                      compression=Compression.TCSC_CF)
+    g = Graph.load(reference_rmat10, cfg, mesh=mesh)
+    ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64)
+    total, _ = ex.checksum()
+    assert total == pytest.approx(REF_PR_CHECKSUM, rel=1e-9)
 
 
 def test_pagerank_tcsc_cf_convergence(mesh, rmat10_edges):

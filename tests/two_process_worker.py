@@ -1,8 +1,8 @@
 """Worker for the REAL multi-process test (tests/test_multiprocess.py).
 
 Each process: jax.distributed.initialize against a local coordinator,
-1 CPU device per process, byte-range read of rmat10 -> exchange_edges ->
-PageRank on the (1, P) mesh. Process 0 prints the checksum line the
+1 CPU device per process, byte-range read of the edge-list file given on
+the command line -> exchange_edges -> PageRank on the (1, P) mesh. Process 0 prints the checksum line the
 parent asserts on (reference run mode: mpirun -np N bin/pr,
 README.md:7-10; ingest exchange: matrix.hpp:692-810).
 """
@@ -12,6 +12,7 @@ import sys
 idx = int(sys.argv[1])
 nproc = int(sys.argv[2])
 port = sys.argv[3]
+path = sys.argv[4]
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
@@ -27,9 +28,9 @@ jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from graphtap_tpu import Graph, GraphConfig, Compression  # noqa: E402
-from graphtap_tpu.apps.pagerank import run_pagerank  # noqa: E402
-from graphtap_tpu.parallel.layout import make_mesh  # noqa: E402
+from graphtap import Graph, GraphConfig, Compression  # noqa: E402
+from graphtap.apps.pagerank import run_pagerank  # noqa: E402
+from graphtap.parallel.layout import make_mesh  # noqa: E402
 
 assert jax.process_count() == nproc, jax.process_count()
 assert len(jax.devices()) == nproc
@@ -37,11 +38,11 @@ assert len(jax.devices()) == nproc
 mesh = make_mesh(jax.devices(), shape=(1, nproc))
 cfg = GraphConfig(num_vertices=1024, directed=True, transpose=True,
                   compression=Compression.TCSC)
-g = Graph.load("/root/reference/data/rmat10_1024.bin", cfg, mesh=mesh)
+g = Graph.load(path, cfg, mesh=mesh)
 
 # every process holds exactly its devices' edges; the global count is
 # conserved (graph.hpp:299-300)
-from graphtap_tpu.parallel import multihost as mh  # noqa: E402
+from graphtap.parallel import multihost as mh  # noqa: E402
 total = int(mh.global_sum(np.int64(g.nedges)))
 ex = run_pagerank(g, num_iterations=20, value_dtype=jnp.float64)
 cs, reach = ex.checksum()
@@ -51,20 +52,18 @@ cs, reach = ex.checksum()
 # so without the OR the source/sink classes would differ per host
 cfg_cf = GraphConfig(num_vertices=1024, directed=True, transpose=True,
                      compression=Compression.TCSC_CF)
-g_cf = Graph.load("/root/reference/data/rmat10_1024.bin", cfg_cf,
-                  mesh=mesh)
+g_cf = Graph.load(path, cfg_cf, mesh=mesh)
 ex_cf = run_pagerank(g_cf, num_iterations=20, value_dtype=jnp.float64)
 cs_cf, reach_cf = ex_cf.checksum()
 
-# panel kernel across 2 real processes: per-device v3 plans padded to
-# the mesh max via the cross-process global_max inside build_spmv3_meta
-# (the distributed tile sweep, vertex_program.hpp:1058-1113)
-ex_p = run_pagerank(g, num_iterations=20, value_dtype=jnp.float32,
-                    kernel="panel")
-cs_p, reach_p = ex_p.checksum()
+# the other SpMV kernel across 2 real processes, f32 (the distributed
+# tile sweep, vertex_program.hpp:1058-1113)
+ex_s = run_pagerank(g, num_iterations=20, value_dtype=jnp.float32,
+                    kernel="segment")
+cs_s, reach_s = ex_s.checksum()
 
 if idx == 0:
     print(f"EDGES {total}")
     print(f"CHECKSUM {cs:.6f} {reach}")
     print(f"CHECKSUM_CF {cs_cf:.6f} {reach_cf}")
-    print(f"CHECKSUM_PANEL {cs_p:.6f} {reach_p}", flush=True)
+    print(f"CHECKSUM_SEGMENT {cs_s:.6f} {reach_s}", flush=True)

@@ -1,13 +1,11 @@
-"""Nonstationary (BFS) on-chip profile + frontier-gating A/B.
+"""Nonstationary (BFS) profile on the device: scan vs segment SpMV.
 
-Answers VERDICT r4 item 6 ("explain the nonstationary GTEPS gap") with
-measurements: per-phase superstep breakdown (scatter_gather / combine /
-apply, the -DTIMING analog), per-iteration times (where the frontier
-gating should show late-iteration wins), and a gate-on vs gate-off A/B
-on identical artifacts.
+Per-kernel best-of-3 BFS time to convergence on identical tiles, then a
+per-phase superstep breakdown (scatter_gather / combine / apply, the
+-DTIMING analog) and per-iteration times for the engine's default kernel
+— where a frontier-sparse late iteration would show as a short combine.
 
-Artifacts (tiles + v3 plans, int32) are disk-cached in .bench_cache so
-re-runs skip the ~3.5 min plan build.
+Tiles are disk-cached in .bench_cache so re-runs skip the build.
 
 Usage: python tools_dev/bfs_profile.py [scale]
 """
@@ -22,12 +20,11 @@ CACHE = os.path.join(ROOT, ".bench_cache")
 
 
 def artifacts(scale):
-    import numpy as np
     import jax
-    from graphtap_tpu import Graph, make_mesh
-    from graphtap_tpu.apps.bfs import bfs_config
-    from graphtap_tpu.config import Ordering
-    from graphtap_tpu.tools import artifact_cache as ac
+    from graphtap import Graph, make_mesh
+    from graphtap.apps.bfs import bfs_config
+    from graphtap.config import Ordering
+    from graphtap.tools import artifact_cache as ac
 
     src, dst, _ = ac.cached_rmat(scale, 16, 1, CACHE)
     nv = (1 << scale) + 1
@@ -40,37 +37,28 @@ def artifacts(scale):
     else:
         tiles = g.tiled(Ordering.ROW)
         ac.save_tileset(tiles, tp)
-    pp = os.path.join(CACHE, f"plans3_{key}_int32.npz")
-    plans = ac.load_spmv3_meta(pp) if os.path.exists(pp) else None
-    if plans is None:
-        from graphtap_tpu.kernels.panel_engine import build_spmv3_meta
-        plans = build_spmv3_meta(tiles, value_dtype=np.dtype(np.int32))
-        ac.save_spmv3_meta(plans, pp)
-    return g, tiles, plans
+    return g, tiles
 
 
 def main():
     scale = int(sys.argv[1]) if len(sys.argv) > 1 else 18
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    from graphtap_tpu.apps.bfs import BFSProgram
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
+    from graphtap.tools.compile_cache import setup_compile_cache
+    setup_compile_cache()
+    from graphtap.apps.bfs import BFSProgram
+    from graphtap.config import EngineConfig, Ordering
+    from graphtap.engine.executor import Executor, KERNELS, DEFAULT_KERNEL
 
     t0 = time.perf_counter()
-    g, tiles, plans = artifacts(scale)
+    g, tiles = artifacts(scale)
     print(f"[prof] artifacts ready +{time.perf_counter()-t0:.0f}s",
           file=sys.stderr)
 
-    def run(gate):
-        os.environ["GRAPHTAP_PANEL_GATE"] = gate
+    def run(kernel):
         ex = Executor(g, BFSProgram(root=0),
                       EngineConfig(stationary=False,
                                    apply_depends_on_iter=True,
                                    ordering=Ordering.ROW),
-                      tiles=tiles, kernel="panel", shuffle_plans=plans)
+                      tiles=tiles, kernel=kernel)
         ex.initialize()
         ex.execute(0)                      # warmup/compile
         best = float("inf")
@@ -80,21 +68,21 @@ def main():
             iters = ex.execute(0)
             best = min(best, time.perf_counter() - t1)
         cs, reach = ex.checksum()
-        print(f"[prof] gate={gate}: {best:.4f}s / {iters} iters "
+        print(f"[prof] {kernel}: {best:.4f}s / {iters} iters "
               f"cs={cs:.0f}/{reach}", file=sys.stderr)
         return ex, best, iters, cs
 
-    ex_on, t_on, it_on, cs_on = run("1")
-    ex_off, t_off, it_off, cs_off = run("0")
-    ex_auto, t_auto, it_auto, cs_auto = run("auto")
-    assert cs_on == cs_off == cs_auto and it_on == it_off == it_auto
-    print(f"[prof] gate forced/off/auto: {t_on:.4f}s / {t_off:.4f}s / "
-          f"{t_auto:.4f}s")
+    runs = {k: run(k) for k in KERNELS}
+    assert len({(r[2], r[3]) for r in runs.values()}) == 1, \
+        "kernels disagree"
+    print("[prof] best seconds: " + " / ".join(
+        f"{k}={r[1]:.4f}" for k, r in runs.items()))
 
-    # per-phase, per-iteration breakdown under auto dispatch
-    ex_auto.initialize()
-    timer = ex_auto.execute_profiled(0, printer=None)
-    print("[prof] per-phase totals (s):")
+    # per-phase, per-iteration breakdown for the default kernel
+    ex = runs[DEFAULT_KERNEL][0]
+    ex.initialize()
+    timer = ex.execute_profiled(0, printer=None)
+    print(f"[prof] per-phase totals (s), kernel={DEFAULT_KERNEL}:")
     for name, xs in timer.samples.items():
         per = " ".join(f"{x*1e3:.1f}" for x in xs)
         print(f"  {name:15s} total={sum(xs):.4f}  per-iter(ms): {per}")

@@ -1,7 +1,7 @@
-"""On-chip kernel-lab comparison table (VERDICT r4 item 9).
+"""On-chip kernel-lab comparison table.
 
-Runs every kernel-lab variant (0-8, graphtap_tpu/tools/kernel_lab.py) on
-the real chip over the same RMAT graph and commits one artifact with
+Runs every kernel-lab variant (graphtap/tools/kernel_lab.py) on the
+chip over the same RMAT graph and writes one artifact with
 time / GTEPS / streamed slots / checksum — the reference's singlenode
 format comparison (src/singlenode/main.slurm:31-40, csc_spmv.hpp:222-228
 op-count + checksum cross-equality), finally with numbers.
@@ -30,7 +30,7 @@ def render(scale, rows):
     lines = [
         f"# Kernel lab on-chip comparison — RMAT-{scale}",
         "",
-        "One real chip; PageRank, identical graph/iterations per variant "
+        "One chip; PageRank, identical graph/iterations per variant "
         "(the reference's singlenode format suite, "
         "`src/singlenode/main.slurm:31-40`).  `operations` is computed "
         "from each variant's OWN tileset, so the cross-variant equality "
@@ -74,12 +74,10 @@ def main():
     if "--render" in argv:
         render(scale, rows)
         return
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    from graphtap_tpu.tools.artifact_cache import cached_rmat
-    from graphtap_tpu.tools.kernel_lab import VARIANTS, run_variant
+    from graphtap.tools.compile_cache import setup_compile_cache
+    setup_compile_cache()
+    from graphtap.tools.artifact_cache import cached_rmat
+    from graphtap.tools.kernel_lab import VARIANTS, run_variant
     cached_rmat(scale, 16, 1, CACHE)       # materialize the .bin
     path = os.path.join(CACHE, f"rmat{scale}_ef16_s1.bin")
     nv = (1 << scale) + 1

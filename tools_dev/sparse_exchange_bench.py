@@ -1,4 +1,4 @@
-"""Sparse-exchange crossover measurement (VERDICT r4 item 8).
+"""Sparse-exchange crossover measurement.
 
 The engine's activity-filtered exchange (`executor._exchange_x/_y`,
 reference: the sparse/dense vote at activity ratio <= 0.6,
@@ -34,11 +34,11 @@ def main():
     scale = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from graphtap_tpu import Graph, make_mesh
-    from graphtap_tpu.apps.bfs import BFSProgram, bfs_config
-    from graphtap_tpu.config import EngineConfig, Ordering
-    from graphtap_tpu.engine.executor import Executor
-    from graphtap_tpu.tools.artifact_cache import cached_rmat
+    from graphtap import Graph, make_mesh
+    from graphtap.apps.bfs import BFSProgram, bfs_config
+    from graphtap.config import EngineConfig, Ordering
+    from graphtap.engine.executor import Executor
+    from graphtap.tools.artifact_cache import cached_rmat
 
     src, dst, _ = cached_rmat(scale, 16, 1, CACHE)
     mesh = make_mesh(jax.devices()[:8], shape=(2, 4))
@@ -80,9 +80,9 @@ def main():
             "rows": rows, "mesh": "2x4 virtual CPU",
             "app": "bfs to convergence, best of 3",
             "note": ("single-host collectives are memcpy, so this bounds "
-                     "the protocol's overhead, not ICI savings; the knob "
-                     "stays default-off unless sparse wins here or on "
-                     "real multi-chip ICI" if not wins else
+                     "the protocol's overhead, not interconnect savings; "
+                     "the knob stays default-off unless sparse wins here "
+                     "or in a multi-card measurement" if not wins else
                      "sparse exchange wins on-host at these capacities")}}
     line = json.dumps(rec)
     print(line)
